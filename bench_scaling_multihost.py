@@ -1,4 +1,4 @@
-"""Cross-process scaling artifact (VERDICT r3 item 6).
+"""Cross-process scaling artifact.
 
 Measures the real 2-process ``jax.distributed`` cluster from
 ``tests/test_multihost.py`` against a single process at FIXED TOTAL
@@ -12,8 +12,8 @@ collectives: maps replicated, scans sharded, no cross-scan
 communication; see BASELINE.md scaling methodology).
 
 This is NOT a statement about physical scaling (2 CPU cores cannot
-speed anything up by splitting); on real 2-host TPU hardware the same
-per-host batch would ride separate chips and the efficiency target is
+speed anything up by splitting); on real multi-host GPU hardware the
+same per-host batch would ride separate cards and the efficiency target is
 >= 80% (BASELINE.json).
 
 Run: python bench_scaling_multihost.py        (parent; spawns workers)
@@ -210,16 +210,16 @@ def main() -> None:
             "jax.distributed cluster (localhost coordinator, workers "
             "core-pinned to disjoint cores). Total compute is "
             "identical, so the ratio bounds the cross-process runtime "
-            "cost ON THIS 2-CORE SANDBOX. Observed: the extra time "
+            "cost ON A 2-CORE MACHINE. Observed: the extra time "
             "scales with work per dispatch (chain_1 vs chain_10), i.e. "
             "the split runtimes execute the same shard programs "
             "slower here (per-process XLA/coordination threads "
             "competing inside 1 core), NOT a fixed dispatch tax — the "
-            "loss model that transfers to real 2-host TPU hardware "
-            "(where each host owns whole chips and cores) is dispatch "
+            "loss model that transfers to real multi-host GPU hardware "
+            "(where each host owns whole cards and cores) is dispatch "
             "skew only, per BASELINE.md; this artifact records the "
-            "sandbox-measurable number the r3 verdict asked for, with "
-            "its confound stated."),
+            "number a 2-core machine can measure, with its confound "
+            "stated."),
     }
     print(json.dumps(out))
     with open("SCALING_MULTIHOST.json", "w") as f:

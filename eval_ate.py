@@ -8,12 +8,12 @@ neighborhood refits) with identical extraction parameters, then prints
 ATE-RMSE of both against ground truth and writes ``ATE_EVAL.json``.
 
 This is the acceptance evidence for the production path's documented
-deviations (docs/design.md §8; VERDICT r2 item 1). The CI-speed
+deviations (docs/design.md §8). The CI-speed
 regression guard lives in ``tests/test_production_parity.py``; this
 script records the full-shape numbers quoted in BASELINE.md.
 
-Run on CPU (the closed loop is host-stepped; accuracy is
-shape-independent of the backend):
+Runs on JAX's default backend; the committed ATE_EVAL.json is a CPU
+run:
     JAX_PLATFORMS=cpu python eval_ate.py
 """
 
@@ -27,18 +27,20 @@ import numpy as np
 
 
 def main():
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
     from lidar_feature_extraction_tpu.config import kitti_hdl64
+    from lidar_feature_extraction_tpu.utils.compile_cache import (
+        enable_compile_cache)
+    from lidar_feature_extraction_tpu.utils.device_info import (
+        device_record)
     from lidar_feature_extraction_tpu.pipeline.localization import (
         build_feature_maps, build_geometry_maps)
     from lidar_feature_extraction_tpu.utils import worldsim
     from lidar_feature_extraction_tpu.utils.evaluation import (
         ate_rmse, relative_translation_errors)
 
+    enable_compile_cache()
     production = kitti_hdl64()
     # Faithful variant: identical extraction parameters and shapes; the
     # deviation stack off (full extraction -> point maps -> cached-
@@ -88,6 +90,7 @@ def main():
         out["production_kitti_hdl64"]["ate_rmse_m"]
         / max(out["faithful"]["ate_rmse_m"], 1e-9), 3)
     out["n_scans"] = len(scans)
+    out["device"] = device_record()
 
     out["slam_loop"] = eval_slam_loop(production, world, rng)
     print("slam_loop", out["slam_loop"], flush=True)
@@ -97,7 +100,7 @@ def main():
 
     bad = _nonfinite_paths(out)
     if bad:
-        # Structural guard (VERDICT r4 item 4): a failed drive must
+        # Structural guard: a failed drive must
         # never silently replace a good artifact — r3 and r4 both
         # ended with ATE_EVAL.json contradicting the docs because a
         # NaN run wrote the file and exited 0.

@@ -1,9 +1,9 @@
-"""TPU-native LiDAR feature-based SLAM engine.
+"""Accelerator-native LiDAR feature-based SLAM engine.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 tier4/lidar_feature_extraction (LOAM-style feature extraction, scan-to-map
 Gauss-Newton registration, time-delay EKF fusion, map building), built
-TPU-first: fixed-shape range-image tensors, batched kernels, voxel-hash
+Fixed-shape range-image tensors, batched kernels, voxel-hash
 correspondence search instead of KD-trees, and pjit/shard_map scale-out.
 """
 

@@ -1,4 +1,4 @@
-"""Configuration tree for the TPU LiDAR SLAM engine.
+"""Configuration tree for the LiDAR SLAM engine.
 
 One frozen-dataclass tree replaces the reference's scattered ROS parameter
 structs and hardcoded constants:
@@ -18,7 +18,7 @@ structs and hardcoded constants:
   window 7 (``localization/app/odometry.cpp:50``).
 
 Fields that have no reference counterpart (capacities, voxel sizes, NMS
-iteration caps) exist because every TPU tensor is fixed-shape: dynamic
+iteration caps) exist because every device tensor is fixed-shape: dynamic
 C++ vectors become statically-sized masked arrays.
 """
 
@@ -32,7 +32,7 @@ from typing import Tuple
 class ExtractionConfig:
     """Feature-extraction hyperparameters.
 
-    Mirrors ``hyper_parameter.hpp:32-67``; shape fields are TPU additions.
+    Mirrors ``hyper_parameter.hpp:32-67``; shape fields are additions.
     """
 
     padding: int = 5
@@ -45,7 +45,7 @@ class ExtractionConfig:
     max_range: float = 100.0
     n_blocks: int = 6
 
-    # --- TPU shape parameters (no reference counterpart) ---
+    # --- Shape parameters (no reference counterpart) ---
     # Range image: [n_rings, max_points_per_ring]; rings with fewer than
     # padding+1 valid points are dropped (RemoveSparseRings, ring.cpp:46).
     n_rings: int = 64
@@ -67,13 +67,9 @@ class ExtractionConfig:
     edges_per_ring: int = 32
     surface_runs_per_ring: int = 64
     # Represent each surface voxel run by its centroid (PCL-style mean,
-    # ~1.1 ms of cumsum+scan machinery on KITTI shapes) instead of the
-    # default run-end measured point (free).
+    # paid for with a cumsum + segmented scan) instead of the default
+    # run-end measured point (free).
     compact_surface_centroid: bool = False
-    # Run labeling + compaction columns as one fused Pallas kernel
-    # (ops/extraction_pallas.py) when on TPU; identical results to the
-    # XLA path by shared code. Ignored off-TPU and in centroid mode.
-    pallas_labeling: bool = True
 
     @property
     def radian_threshold(self) -> float:
@@ -88,7 +84,7 @@ class VoxelMapConfig:
 
     The reference builds a KD-tree over the feature map
     (``localization/include/lidar_feature_localization/kdtree.hpp:56``) and
-    does exact k-NN. On TPU we hash map points into an open-addressed voxel
+    does exact k-NN. Here we hash map points into an open-addressed voxel
     table and gather candidates from the 3x3x3 neighborhood of the query
     voxel; ATE parity (not neighbor parity) is the acceptance criterion.
     """
@@ -114,7 +110,7 @@ class RegistrationConfig:
     huber_k: float = 1.345           # robust.hpp
     degeneracy_threshold: float = 0.1  # degenerate.hpp / optimizer.cpp:67
     surface_downsample_leaf: float = 1.0  # surface.hpp:111
-    # TPU deviation from the reference's per-iteration KD-tree search:
+    # Deviation from the reference's per-iteration KD-tree search:
     # the 27-voxel candidate sets are gathered once per search round and
     # the Gauss-Newton inner iterations only re-rank them (valid while
     # the pose correction stays below a voxel size). n_search_rounds

@@ -1,6 +1,6 @@
 """Quaternion calculus, fully vectorized over point batches.
 
-TPU-native re-design of the reference's ``rotationlib`` (C++/Eigen free
+Array-native re-design of the reference's ``rotationlib`` (C++/Eigen free
 functions over single quaternions): every function here accepts arbitrary
 leading batch dimensions and is jit/vmap/grad friendly.
 

@@ -1,4 +1,4 @@
-"""Range-image scan container: the fixed-shape TPU replacement for
+"""Range-image scan container: the fixed-shape replacement for
 per-ring ``std::vector`` point lists.
 
 The reference groups points by the ``ring`` field into a hash map of

@@ -1,6 +1,6 @@
 """Robust statistics kernels: masked median, MAD scale, Huber weights.
 
-TPU re-design of the reference's scalar loops:
+Array re-design of the reference's scalar loops:
 - ``Median`` (``lib/src/stats.cpp:57-68``) — here a masked, fixed-shape
   sort-based median so it can live inside a jitted Gauss-Newton loop;
 - ``MedianAbsoluteDeviation`` / ``Scale`` (``localization/src/robust.cpp:
@@ -85,11 +85,10 @@ def _wide_median(values: jnp.ndarray, mask: jnp.ndarray,
                  branch: int = 256, rounds: int = 3) -> jnp.ndarray:
     """Median by WIDE value-range bisection: each round tests ``branch``
     thresholds simultaneously (one fused compare+count pass over the
-    data, a [N, branch] reduction the TPU eats in microseconds) and
+    data, one [N, branch] reduction) and
     narrows the interval by ``branch``x. Three rounds reach
     range * 256^-3 = 2^-24 — f32-exact — where the sequential bisection
-    needed 30 dependent rounds (measured 0.62 ms/GN-iteration; this
-    form is ~10x cheaper). Converges to the lower-middle order
+    needed 30 dependent rounds. Converges to the lower-middle order
     statistic like the sequential version."""
     big = jnp.asarray(jnp.finfo(values.dtype).max, values.dtype)
     n = jnp.sum(mask.astype(jnp.int32))
@@ -120,7 +119,7 @@ def masked_scale_bisect(values: jnp.ndarray, mask: jnp.ndarray,
     (~1/n relative for smooth error distributions). The Huber-IRLS
     weights this scale normalizes are insensitive to percent-level
     scale shifts, and the sort-free form is far cheaper inside the
-    Gauss-Newton hot loop on TPU. ``iters`` is kept for API
+    Gauss-Newton hot loop. ``iters`` is kept for API
     compatibility; precision is fixed at f32-exact (see _wide_median).
     """
     del iters

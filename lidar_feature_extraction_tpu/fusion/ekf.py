@@ -13,7 +13,7 @@ state_index.hpp). Components:
   ``ekf_localizer/include/ekf_localizer/ekf_localizer.hpp:55-103``).
 
 Everything numerical is a pure jitted function over an ``EkfState``
-pytree; the queueing/timing host logic lives in pipeline/ (the TPU
+pytree; the queueing/timing host logic lives in pipeline/ (the device
 analogue of the rclcpp timer node, ``ekf_localizer.cpp:176-233``).
 """
 
@@ -27,6 +27,7 @@ import jax.numpy as jnp
 
 from lidar_feature_extraction_tpu.config import EkfConfig
 from lidar_feature_extraction_tpu.fusion import kalman
+from lidar_feature_extraction_tpu.core.precision import highest_precision
 
 DIM_X = 6
 IDX_X, IDX_Y, IDX_YAW, IDX_YAWB, IDX_VX, IDX_WZ = range(6)
@@ -72,6 +73,7 @@ def process_noise(variances, dtype=jnp.float32):
     return jnp.diag(jnp.concatenate([jnp.zeros(2, dtype), v]))
 
 
+@highest_precision
 def squared_mahalanobis(x, y, cov):
     """(mahalanobis.cpp:19-27)."""
     d = x - y

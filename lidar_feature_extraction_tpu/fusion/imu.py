@@ -6,7 +6,7 @@ with no functions and a node with no subscriptions
 ``imu_integration/src/integration.cpp:37-53``; its test filename
 ``test_rkmk.cpp`` hints at planned Runge-Kutta-Munthe-Kaas integration,
 SURVEY.md §2.6). The LIO-SAM lineage it cites requires real
-preintegration, so this module implements it TPU-natively: the whole
+preintegration, so this module implements it array-natively: the whole
 sample window integrates in one ``lax.scan``, bias-correction Jacobians
 and the 9x9 covariance propagate in the same pass, and the resulting
 factor plugs into the keyframe pose graph (parallel/pose_graph.py).
@@ -24,6 +24,7 @@ import jax
 import jax.numpy as jnp
 
 from lidar_feature_extraction_tpu.core import quaternion as quat
+from lidar_feature_extraction_tpu.core.precision import highest_precision
 
 # Plain numpy: a module-level jnp constant would freeze whatever default
 # dtype (and backend) is active at import time; consumers cast to their
@@ -45,6 +46,7 @@ class ImuPreintegration(NamedTuple):
     cov: jnp.ndarray      # [9, 9] (theta, v, p) covariance
 
 
+@highest_precision
 def preintegrate(gyro: jnp.ndarray, accel: jnp.ndarray, dts: jnp.ndarray,
                  gyro_bias: jnp.ndarray, accel_bias: jnp.ndarray,
                  valid: jnp.ndarray | None = None,
@@ -144,6 +146,7 @@ def preintegrate(gyro: jnp.ndarray, accel: jnp.ndarray, dts: jnp.ndarray,
                              dp_dbg=dp_dbg, dp_dba=dp_dba, cov=cov)
 
 
+@highest_precision
 def _so3_right_jacobian(theta: jnp.ndarray, eps: float = 1e-8):
     """Right Jacobian of SO(3): J_r(theta), closed form with small-angle
     guard (series to second order)."""
@@ -209,6 +212,7 @@ class ImuFactorResidual(NamedTuple):
     r_p: jnp.ndarray      # [3]
 
 
+@highest_precision
 def imu_factor_residual(pre: ImuPreintegration,
                         qi, pi, vi, qj, pj, vj,
                         delta_bg=None, delta_ba=None,

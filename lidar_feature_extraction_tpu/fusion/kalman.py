@@ -11,7 +11,7 @@ Parity sources:
   the ``delay_step``-th block (makeMeasurementMatrix :95-103,
   UpdateWithDelay :115-140).
 
-TPU design notes: the block measurement matrix D = [0..C..0] is never
+Design notes: the block measurement matrix D = [0..C..0] is never
 materialized — ``D P`` and ``P D^T`` are dynamic block slices, turning
 the reference's [m x nd][nd x nd] products into [m x d][d x nd] ones.
 All functions are pure and jittable; the filter state is a pytree.
@@ -24,26 +24,33 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
+from lidar_feature_extraction_tpu.core.precision import highest_precision
+
 
 # --- stateless kernels (kalman_filter.hpp:28-63) ---
 
+@highest_precision
 def predict_next_state(x, u, a, b):
     return a @ x + b @ u
 
 
+@highest_precision
 def predict_next_covariance(p, a, q):
     return a @ p @ a.T + q
 
 
+@highest_precision
 def calc_kalman_gain(p, c, r):
     pct = p @ c.T
     return pct @ jnp.linalg.inv(r + c @ pct)
 
 
+@highest_precision
 def update_state(x, y, c, k):
     return x + k @ (y - c @ x)
 
 
+@highest_precision
 def update_covariance(p, c, k):
     return p - k @ c @ p
 
@@ -68,6 +75,7 @@ def init_time_delay(x0: jnp.ndarray, p0: jnp.ndarray,
     return TimeDelayState(x=x, p=p)
 
 
+@highest_precision
 def predict_with_delay(state: TimeDelayState, x_next: jnp.ndarray,
                        a: jnp.ndarray, q: jnp.ndarray) -> TimeDelayState:
     """Shift the register and propagate covariance.
@@ -91,6 +99,7 @@ def predict_with_delay(state: TimeDelayState, x_next: jnp.ndarray,
     return TimeDelayState(x=x1, p=jnp.concatenate([top, bot], axis=0))
 
 
+@highest_precision
 def update_with_delay(state: TimeDelayState, y: jnp.ndarray,
                       c_mat: jnp.ndarray, r: jnp.ndarray,
                       delay_step: jnp.ndarray, dim_x: int) -> TimeDelayState:

@@ -1,6 +1,6 @@
 """KITTI odometry dataset readers.
 
-The reference consumes ROS bags; the TPU engine replays KITTI velodyne
+The reference consumes ROS bags; this engine replays KITTI velodyne
 ``.bin`` scans (float32 x,y,z,intensity records) directly. Ring indices
 are not stored in KITTI scans, so they are recovered geometrically from
 the elevation angle — the standard HDL-64E beam model.

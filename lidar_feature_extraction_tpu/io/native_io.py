@@ -19,7 +19,7 @@ _TRIED = False
 def _lib_path() -> str:
     here = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
-    return os.path.join(here, "native", "libtpu_lidar_io.so")
+    return os.path.join(here, "native", "liblidar_io.so")
 
 
 def _load():

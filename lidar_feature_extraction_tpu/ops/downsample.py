@@ -40,6 +40,8 @@ def voxel_downsample(xyz: jnp.ndarray, mask: jnp.ndarray, voxel_size,
     seg = jnp.where(valid & (seg >= 0), seg, capacity)
     seg_c = jnp.minimum(seg, capacity)
 
+    # On a GPU these scatter-adds run as atomics: the sums can differ in
+    # the last bits from run to run and from the CPU.
     sums = jnp.zeros((capacity + 1, 3), dtype)
     sums = sums.at[seg_c].add(jnp.where(valid[:, None], sxyz, 0.0),
                               mode="drop")
@@ -61,8 +63,7 @@ def voxel_downsample_dense(xyz: jnp.ndarray, mask: jnp.ndarray,
     Same contract and centroid math as ``voxel_downsample`` (parity:
     ``pcl::VoxelGrid`` via downsample.hpp:38-49) but the segmented
     reduction runs as a scatter-add into a fixed-dims grid anchored at
-    the scan's voxel minimum instead of an argsort — the sort is the
-    measured cost on TPU. ``grid_dims`` bounds the scan extent in
+    the scan's voxel minimum instead of an argsort. ``grid_dims`` bounds the scan extent in
     voxels (points outside are dropped, like capacity overflow). Output
     is raveled-cell order — lexicographic in (x, y, z) cell coords,
     matching the packed-key order of the sort-based variant.
@@ -81,6 +82,7 @@ def voxel_downsample_dense(xyz: jnp.ndarray, mask: jnp.ndarray,
     cell = (c[..., 0] * ny + c[..., 1]) * nz + c[..., 2]
     cell = jnp.where(inside, cell, cells_cap)
 
+    # Atomic on a GPU, as in voxel_downsample.
     sums = jnp.zeros((cells_cap + 1, 3), dtype)
     sums = sums.at[cell].add(jnp.where(inside[:, None], xyz, 0.0),
                              mode="drop")

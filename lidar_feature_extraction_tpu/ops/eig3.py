@@ -2,7 +2,7 @@
 
 The reference calls Eigen's ``SelfAdjointEigenSolver::computeDirect``
 per edge point (``localization/include/lidar_feature_localization/
-edge.hpp:111-113``). On TPU we need thousands of simultaneous 3x3
+edge.hpp:111-113``). Here we need thousands of simultaneous 3x3
 eigenproblems with no iteration or pivoting; this implements the
 analytic method (trigonometric eigenvalues + cross-product
 eigenvectors with a branch-free pivot choice), vmappable and

@@ -1,4 +1,4 @@
-"""LOAM feature extraction as batched fixed-shape TPU kernels.
+"""LOAM feature extraction as batched fixed-shape array programs.
 
 Re-designs the reference's per-ring sequential pipeline
 (``extraction/app/feature_extraction.cpp:92-171``) as a handful of
@@ -7,7 +7,7 @@ vectorized passes over the whole ``[n_rings, max_points]`` range image:
 1. curvature — 1-D convolution of the XY range with weight
    ``[1..1, -2p, 1..1]`` then square (``extraction/src/curvature.cpp:
    36-51``, ``convolution.cpp:35-66``), expressed as a sum of lane
-   shifts (one fused VPU pass) instead of a scalar loop;
+   shifts (one fused elementwise pass) instead of a scalar loop;
 2. neighbor flags + "gap prefix" — the azimuth-adjacency predicate
    (``neighbor.hpp:45``, ``math.cpp:34``) evaluated once per adjacent
    pair; a prefix-sum of gaps turns the reference's directional
@@ -62,6 +62,81 @@ class ExtractionResult(NamedTuple):
     surface_valid: jnp.ndarray  # [max_surfaces] bool
 
 
+def _split(a: jnp.ndarray):
+    """a = hi + lo exactly, float32, each half with at most 12
+    significant bits, so the product of two halves is exact."""
+    bits = jax.lax.bitcast_convert_type(a, jnp.int32)
+    hi = jax.lax.bitcast_convert_type(bits & ~0xFFF, jnp.float32)
+    return hi, a - hi
+
+
+def _dot2(a, b, c, d):
+    """a*b + c*d from exact partial products.
+
+    XLA's CPU backend fuses a multiply into the add that consumes it
+    (one rounding); its GPU backend rounds the product first. Labels come
+    from comparisons of such sums, so a last-bit difference can flip a
+    label. With exact partial products a fused multiply-add rounds
+    exactly as a plain add does, so every backend gives the same bits.
+    Other dtypes take the plain expression.
+    """
+    if a.dtype != jnp.float32:
+        return a * b + c * d
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    ch, cl = _split(c)
+    dh, dl = _split(d)
+    return (((ah * bh + ch * dh) + ((ah * bl + al * bh) + (ch * dl + cl * dh)))
+            + (al * bl + cl * dl))
+
+
+def _sqrt_step(s: jnp.ndarray, c: jnp.ndarray) -> jnp.ndarray:
+    """Move ``c`` one ulp toward the correctly rounded sqrt(s), float32.
+
+    c = C * 2^f with C a 24-bit integer. Split c = ch + cl at 12 bits
+    (bit mask), so ch*ch, 2*ch*cl and cl*cl are exact; s - ch*ch is
+    exact (Sterbenz) and so is the next difference, whose exact value
+    needs at most 13 bits. In units of 2^(2f) the sign of s - m^2 at
+    the midpoints m = c +/- ulp/2 is then an int32 test. Every step is
+    exact, so fused multiply-adds cannot change the answer.
+    """
+    bits = jax.lax.bitcast_convert_type(c, jnp.int32)
+    ch = jax.lax.bitcast_convert_type(bits & ~0xFFF, jnp.float32)
+    cl = c - ch
+    d2 = (s - ch * ch) - (2.0 * ch) * cl           # s - c*c + cl*cl
+    f = ((bits >> 23) & 0xFF) - 150                 # c = C * 2^f
+    scale = jax.lax.bitcast_convert_type((127 - 2 * f) << 23, jnp.float32)
+    n = (d2 * scale).astype(jnp.int32)              # exact integer
+    big_c = (bits & 0x7FFFFF) | 0x800000
+    cl_i = bits & 0xFFF
+    above = n - cl_i * cl_i - big_c >= 1            # sqrt(s) > c + ulp/2
+    low_c = jnp.where(big_c == 0x800000, big_c // 2, big_c)
+    below = n - cl_i * cl_i + low_c <= 0            # sqrt(s) < c - ulp/2
+    step = above.astype(jnp.int32) - below.astype(jnp.int32)
+    return jax.lax.bitcast_convert_type(bits + step, jnp.float32)
+
+
+def sqrt_rn(s: jnp.ndarray) -> jnp.ndarray:
+    """Correctly rounded float32 square root on every backend.
+
+    XLA's GPU square root is not correctly rounded (it differs from the
+    CPU's in the last bit for about one value in six), and ranges decide
+    labels through comparisons. Two exact correction steps from the
+    backend's own result give the IEEE value; inputs outside
+    [2^-80, 2^100] (zero, for masked lanes) keep the plain result, and
+    so do other dtypes.
+    """
+    r = jnp.sqrt(s)
+    if s.dtype != jnp.float32:
+        return r
+    ok = (s >= 2.0 ** -80) & (s <= 2.0 ** 100)
+    c = jnp.where(ok, r, 1.0)
+    t = jnp.where(ok, s, 1.0)
+    for _ in range(2):
+        c = _sqrt_step(t, c)
+    return jnp.where(ok, c, r)
+
+
 def curvature_kernel(rng: jnp.ndarray, count: jnp.ndarray,
                      padding: int) -> jnp.ndarray:
     """Squared range-curvature over each ring, [R, P].
@@ -70,7 +145,11 @@ def curvature_kernel(rng: jnp.ndarray, count: jnp.ndarray,
     zero outside [p, n-p). Parity: curvature.cpp:36-51.
     """
     p = padding
-    acc = -2.0 * p * rng
+    if rng.dtype == jnp.float32:      # exact halves, see _dot2
+        hi, lo = _split(rng)
+        acc = (-2.0 * p) * hi + (-2.0 * p) * lo
+    else:
+        acc = -2.0 * p * rng
     for k in range(1, p + 1):
         acc = acc + jnp.roll(rng, k, axis=-1) + jnp.roll(rng, -k, axis=-1)
     idx = jax.lax.broadcasted_iota(jnp.int32, rng.shape, rng.ndim - 1)
@@ -86,16 +165,18 @@ def neighbor_flags_xy(x: jnp.ndarray, y: jnp.ndarray, count: jnp.ndarray,
     The reference compares acos(cos) < threshold (math.cpp:34-49); cos
     is strictly decreasing on [0, pi], so this compares
     cos(angle) > cos(threshold) instead — the same predicate without
-    the transcendental (which Mosaic does not lower)."""
+    the transcendental."""
     import math
 
     xn, yn = jnp.roll(x, -1, axis=-1), jnp.roll(y, -1, axis=-1)
-    dot = x * xn + y * yn
-    norm = jnp.sqrt(x * x + y * y) * jnp.sqrt(xn * xn + yn * yn)
-    cosang = jnp.clip(dot / jnp.maximum(norm, 1e-30), -1.0, 1.0)
+    dot = _dot2(x, xn, y, yn)
+    r = sqrt_rn(_dot2(x, x, y, y))
+    norm = jnp.maximum(r * jnp.roll(r, -1, axis=-1), 1e-30)
     idx = jax.lax.broadcasted_iota(jnp.int32, x.shape, x.ndim - 1)
     has_next = idx < jnp.reshape(count, (-1, 1)) - 1
-    return (cosang > math.cos(radian_threshold)) & has_next
+    # dot / norm > cos(threshold), without the division (not correctly
+    # rounded on the GPU).
+    return (dot > math.cos(radian_threshold) * norm) & has_next
 
 
 def neighbor_flags(xyz: jnp.ndarray, count: jnp.ndarray,
@@ -109,32 +190,12 @@ def neighbor_flags(xyz: jnp.ndarray, count: jnp.ndarray,
                              radian_threshold)
 
 
-def _cumsum_lanes(a: jnp.ndarray) -> jnp.ndarray:
-    """Inclusive cumsum along the last axis as log-depth lane shifts
-    (Hillis-Steele). Used instead of ``jnp.cumsum`` in code shared with
-    the Pallas kernel — Mosaic has no cumsum lowering; XLA's own TPU
-    lowering of cumsum is the same shift ladder."""
-    P = a.shape[-1]
-    idx = jax.lax.broadcasted_iota(jnp.int32, a.shape, a.ndim - 1)
-    d = 1
-    while d < P:
-        a = a + jnp.where(idx >= d, jnp.roll(a, d, axis=-1), 0)
-        d *= 2
-    return a
-
-
-def _roll_bool(a: jnp.ndarray, shift: int) -> jnp.ndarray:
-    """Lane roll of a boolean mask via int32 (Mosaic cannot roll i1
-    vector registers)."""
-    return jnp.roll(a.astype(jnp.int32), shift, axis=-1) == 1
-
-
 def gap_prefix(nb: jnp.ndarray) -> jnp.ndarray:
     """G[r, i] = number of non-neighbor pairs strictly before lane i.
     Two lanes i <= j are connected (every consecutive pair between them
     passes the neighbor check) iff G[i] == G[j]."""
     gaps = (~nb).astype(jnp.int32)
-    g = _cumsum_lanes(gaps)
+    g = jnp.cumsum(gaps, axis=-1)
     idx = jax.lax.broadcasted_iota(jnp.int32, g.shape, g.ndim - 1)
     return jnp.where(idx >= 1, jnp.roll(g, 1, axis=-1), 0)
 
@@ -152,9 +213,8 @@ def block_ids(count: jnp.ndarray, n_points: int, padding: int,
     R = count.shape[0]
     n = jnp.reshape(count, (-1, 1))
     idx = jax.lax.broadcasted_iota(jnp.int32, (R, n_points), 1)
-    # Accumulate over the n_blocks+1 boundaries as [R, P] compares — a
-    # [R, P, n_blocks+1] broadcast would pad its 7-wide minor dim to
-    # 128 lanes inside the Pallas kernel (~10 MB of VMEM per temp).
+    # Accumulate over the n_blocks+1 boundaries as [R, P] compares (no
+    # [R, P, n_blocks+1] temporary).
     blk = jnp.full((R, n_points), -1, jnp.int32)
     for j in range(n_blocks + 1):
         bound_j = (padding * (n_blocks - j) + (n - padding) * j) \
@@ -197,9 +257,7 @@ def _nms_pass(labels, curvature, blk, g, count, *, padding, n_blocks,
     lane = jax.lax.broadcasted_iota(jnp.int32, curvature.shape,
                                     curvature.ndim - 1)
     P = curvature.shape[-1]
-    # Python-literal -inf: a jnp scalar constant here would be
-    # captured by the Pallas kernel closure, which Pallas rejects.
-    neg_inf = float("-inf")
+    neg_inf = -jnp.inf
 
     score = curvature if pick_max else -curvature
     thr_ok = (curvature >= threshold) if pick_max else (curvature <= threshold)
@@ -234,7 +292,7 @@ def _nms_pass(labels, curvature, blk, g, count, *, padding, n_blocks,
         for d in range(1, padding + 1):
             for sgn in (-1, 1):
                 dd = sgn * d
-                sel_n = _roll_bool(selected, -dd)
+                sel_n = jnp.roll(selected, -dd, axis=-1)
                 g_n = jnp.roll(g, -dd, axis=-1)
                 blk_n = jnp.roll(blk, -dd, axis=-1)
                 inb = ((lane + dd >= 0) & (lane + dd < P)
@@ -270,20 +328,19 @@ def occlusion_mask(rng, nb, g, count, *, padding, distance_diff_threshold):
 
     jump_up = jnp.roll(rng, -1, axis=-1) > rng + distance_diff_threshold
     # Left: trigger at position i+1 for i in [0, n-padding-2].
-    trig_l = _roll_bool(nb & jump_up & (idx < n - padding - 1), 1)
+    trig_l = jnp.roll(nb & jump_up & (idx < n - padding - 1), 1, axis=-1)
     trig_l = trig_l & (idx >= 1)
     # Right: trigger at position m=i-1 for i in [padding+1, n-1]:
     # nb(m, m+1) and range[m] > range[m+1] + thr.
     jump_down = rng > jnp.roll(rng, -1, axis=-1) + distance_diff_threshold
     trig_r = nb & jump_down & (idx >= padding) & (idx <= n - 2)
 
-    # dshift = 0 first (Mosaic rejects the zero-size slice of roll-by-0).
-    occl = trig_l | trig_r
+    occl = trig_l | trig_r                                   # dshift = 0
     for dshift in range(1, padding + 1):
-        tl = _roll_bool(trig_l, dshift) & (idx >= dshift)
+        tl = jnp.roll(trig_l, dshift, axis=-1) & (idx >= dshift)
         gl = jnp.roll(g, dshift, axis=-1)
         occl = occl | (tl & (g == gl))
-        tr = _roll_bool(trig_r, -dshift) & (idx + dshift < P)
+        tr = jnp.roll(trig_r, -dshift, axis=-1) & (idx + dshift < P)
         gr = jnp.roll(g, -dshift, axis=-1)
         occl = occl | (tr & (g == gr))
     return occl & (idx < n)
@@ -293,22 +350,20 @@ def parallel_beam_mask(rng, count, *, range_ratio_threshold):
     """ratio test on both adjacent ranges (parallel_beam.hpp:37-53)."""
     idx = jax.lax.broadcasted_iota(jnp.int32, rng.shape, rng.ndim - 1)
     n = jnp.reshape(jnp.asarray(count), (-1, 1))
-    safe = jnp.maximum(rng, 1e-30)
-    r_prev = jnp.abs(jnp.roll(rng, 1, axis=-1) - rng) / safe
-    r_next = jnp.abs(jnp.roll(rng, -1, axis=-1) - rng) / safe
+    # |dr| / r > threshold, without the division (not correctly rounded
+    # on the GPU).
+    lim = range_ratio_threshold * jnp.maximum(rng, 1e-30)
+    d_prev = jnp.abs(jnp.roll(rng, 1, axis=-1) - rng)
+    d_next = jnp.abs(jnp.roll(rng, -1, axis=-1) - rng)
     inner = (idx >= 1) & (idx < n - 1)
-    return (r_prev > range_ratio_threshold) \
-        & (r_next > range_ratio_threshold) & inner
+    return (d_prev > lim) & (d_next > lim) & inner
 
 
 def label_planes(x: jnp.ndarray, y: jnp.ndarray, mask: jnp.ndarray,
                  count: jnp.ndarray, cfg: ExtractionConfig
                  ) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """Plane-based labeling core over x/y coordinate planes [R, P] —
-    shared by the XLA path (``label_range_image``) and the fused Pallas
-    extraction kernel (ops/extraction_pallas.py). All index math uses
-    2-D broadcasted iota (a Mosaic requirement)."""
-    rng = jnp.where(mask, jnp.sqrt(x * x + y * y), 0.0)
+    """Plane-based labeling core over x/y coordinate planes [R, P]."""
+    rng = jnp.where(mask, sqrt_rn(_dot2(x, x, y, y)), 0.0)
 
     curv = curvature_kernel(rng, count, cfg.padding)
     nb = neighbor_flags_xy(x, y, count, cfg.radian_threshold)
@@ -360,8 +415,8 @@ def label_range_image(image: RangeImage,
 def compact_by_mask(xyz: jnp.ndarray, mask: jnp.ndarray,
                     capacity: int) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Gather masked points of a [R, P, 3] tensor into a fixed-capacity
-    [capacity, 3] array + validity mask (the TPU replacement for the
-    dynamically-sized GetIndicesByValue / GetByIndices extraction,
+    [capacity, 3] array + validity mask (the fixed-shape replacement for
+    the dynamically-sized GetIndicesByValue / GetByIndices extraction,
     lib/include/lidar_feature_library/algorithm.hpp:41-62)."""
     flat = mask.ravel()
     (sel,) = jnp.nonzero(flat, size=capacity, fill_value=flat.shape[0])
@@ -385,26 +440,18 @@ def extract_features(image: RangeImage,
                             surf_xyz, surf_valid)
 
 
-def _voxel_run_key_planes(x, y, z, leaf: float) -> jnp.ndarray:
-    """int32 voxel identity hash over coordinate planes (equality of
-    ADJACENT lanes only — a hash collision merely merges two
-    neighboring runs)."""
-    cx = jnp.floor(x / leaf).astype(jnp.int32)
-    cy = jnp.floor(y / leaf).astype(jnp.int32)
-    cz = jnp.floor(z / leaf).astype(jnp.int32)
-    return (cx * 73856093) ^ (cy * 19349663) ^ (cz * 83492791)
-
-
 def _voxel_run_key(xyz: jnp.ndarray, leaf: float) -> jnp.ndarray:
-    """AoS wrapper of ``_voxel_run_key_planes`` for [..., 3] points."""
-    return _voxel_run_key_planes(xyz[..., 0], xyz[..., 1], xyz[..., 2],
-                                 leaf)
+    """int32 voxel identity hash of [..., 3] points (equality of ADJACENT
+    lanes only — a hash collision merely merges two neighboring runs)."""
+    c = jnp.floor(xyz * (1.0 / leaf)).astype(jnp.int32)
+    return (c[..., 0] * 73856093) ^ (c[..., 1] * 19349663) \
+        ^ (c[..., 2] * 83492791)
 
 
 def _propagate_from_flag(flag: jnp.ndarray, value: jnp.ndarray,
                          axis: int) -> jnp.ndarray:
     """Per lane: the most recent ``value`` at or before it where ``flag``
-    is set (a segmented hold — log-depth associative scan, pure VPU)."""
+    is set (a segmented hold — log-depth associative scan, elementwise)."""
 
     def combine(a, b):
         af, av = a
@@ -422,9 +469,8 @@ def compact_columns(labels: jnp.ndarray, mask: jnp.ndarray,
 
     Edge lanes get their per-ring rank (capped at ``ce``); surface
     voxel-run END lanes get ``ce +`` their stratified run column; all
-    other lanes get the dump column ``ce + cs``. Plane-only math
-    (2-D iota, rolls, cumsums) — shared by the XLA path and the Pallas
-    extraction kernel. Returns (col, edge_mask, surf_mask, run_end)."""
+    other lanes get the dump column ``ce + cs``. Returns (col, edge_mask,
+    surf_mask, run_end)."""
     edge_mask = (labels == EDGE) & mask
     surf_mask = (labels == SURFACE) & mask
     idx = jax.lax.broadcasted_iota(jnp.int32, labels.shape,
@@ -432,14 +478,14 @@ def compact_columns(labels: jnp.ndarray, mask: jnp.ndarray,
     P = labels.shape[-1]
 
     # Edge columns: per-ring rank, capped.
-    epos = _cumsum_lanes(edge_mask.astype(jnp.int32)) - 1
+    epos = jnp.cumsum(edge_mask.astype(jnp.int32), axis=-1) - 1
     ecol = jnp.where(edge_mask & (epos < ce), epos, -1)
 
     # Surface runs: adjacent SURFACE lanes sharing a voxel key.
     nxt_key = jnp.roll(key, -1, axis=-1)
-    nxt_surf = _roll_bool(surf_mask, -1) & (idx < P - 1)
+    nxt_surf = jnp.roll(surf_mask, -1, axis=-1) & (idx < P - 1)
     run_end = surf_mask & (~nxt_surf | (nxt_key != key))
-    rid = _cumsum_lanes(run_end.astype(jnp.int32)) - 1          # [R, P]
+    rid = jnp.cumsum(run_end.astype(jnp.int32), axis=-1) - 1     # [R, P]
     n_runs = jnp.maximum(rid[:, P - 1:P] + 1, 1)
     # Stratified pick: column floor(rid * cs / max(n_runs, cs)); take
     # the first run that lands on each column.
@@ -486,10 +532,8 @@ def extract_features_compact(image: RangeImage, cfg: ExtractionConfig,
     The reference pipeline compacts labeled features into dynamic
     vectors (GetIndicesByValue, lib/algorithm.hpp:41-62) and voxel-
     downsamples the surface scan at registration time (surface.hpp:111).
-    On this hardware every compaction-style kernel launch (nonzero /
-    sort / scatter / gather) costs ~0.3-2 ms regardless of size, so this
-    path reformulates both steps as dense per-ring algebra finished by a
-    single one-hot matmul:
+    This path reformulates both steps as dense per-ring algebra finished
+    by a single one-hot matmul, with no nonzero / sort / scatter:
 
     - **edges**: per-ring rank by lane order (cumsum of the EDGE mask);
       the first ``edges_per_ring`` per ring keep their rank as the
@@ -507,34 +551,24 @@ def extract_features_compact(image: RangeImage, cfg: ExtractionConfig,
       point (``surface_centroid=False``, default — a real surface
       sample, no scan machinery) or the run centroid
       (``surface_centroid=True`` — the PCL-style mean, paid for with a
-      masked cumsum + log-depth segmented hold, measured ~1.1 ms on
-      KITTI shapes). Voxels revisited by later runs/other rings
+      masked cumsum + log-depth segmented hold). Voxels revisited by later runs/other rings
       contribute one point per run instead of being merged (documented
       deviation, docs/design.md §8; acceptance is ATE parity).
 
-    Both feature classes ride ONE [R, P, ce+cs] one-hot matmul (exact
-    0/1 selection in f32, so values are bit-identical to a gather).
+    Both feature classes ride ONE [R, P, ce+cs] one-hot matmul at
+    ``Precision.HIGHEST``: every output sums one feature value and zeros
+    in float32, so values are bit-identical to a gather. At a lower
+    matmul precision (TF32 on a GPU) the coordinates would be rounded.
     """
     xyz = image.xyz
     R, P = image.mask.shape
     ce, cs = edges_per_ring, surface_runs_per_ring
     dtype = xyz.dtype
 
-    use_pallas = (cfg.pallas_labeling and not surface_centroid
-                  and jax.default_backend() == "tpu")
-    if use_pallas:
-        from lidar_feature_extraction_tpu.ops.extraction_pallas import (
-            label_and_columns_pallas)
-
-        labels, curv, col = label_and_columns_pallas(
-            xyz[..., 0], xyz[..., 1], xyz[..., 2], image.count, cfg,
-            surface_leaf, ce, cs)
-        edge_mask = (labels == EDGE) & image.mask
-    else:
-        labels, curv = label_range_image(image, cfg)
-        key = _voxel_run_key(xyz, surface_leaf)
-        col, edge_mask, surf_mask, run_end = compact_columns(
-            labels, image.mask, key, ce, cs)
+    labels, curv = label_range_image(image, cfg)
+    key = _voxel_run_key(xyz, surface_leaf)
+    col, edge_mask, surf_mask, _ = compact_columns(
+        labels, image.mask, key, ce, cs)
 
     if surface_centroid:
         idx = jax.lax.broadcasted_iota(jnp.int32, (R, P), 1)
@@ -565,6 +599,7 @@ def extract_features_compact(image: RangeImage, cfg: ExtractionConfig,
     else:
         feat = run_sum4          # [xyz, 1] for edges and surfaces alike
     out = jnp.einsum("rpc,rpf->rcf", onehot, feat,
+                     precision=jax.lax.Precision.HIGHEST,
                      preferred_element_type=dtype)     # [R, ce+cs, 4]
 
     eblk = out[:, :ce]

@@ -5,9 +5,9 @@ The reference refits the neighborhood geometry per scan point per
 Gauss-Newton iteration: k-NN in the map, then PCA for edges
 (``Edge::Make``, ``localization/include/lidar_feature_localization/
 edge.hpp:78-126``) or a least-squares plane for surfaces
-(``Surface::Make``, ``surface.hpp:96-143``). On TPU the dominant cost of
-that formulation is the candidate *gather* (measured ~5.3 ms/scan for
-the 27-voxel point sets) plus top-k and per-point fits (~3 ms).
+(``Surface::Make``, ``surface.hpp:96-143``). The cost of that
+formulation is the candidate *gather* of the 27-voxel point sets plus
+top-k and per-point fits, every iteration.
 
 This module moves the entire neighborhood fit to **map build time**,
 VGICP/NDT-style: the fitted line/plane is a function of the map points
@@ -51,6 +51,7 @@ from lidar_feature_extraction_tpu.core.pose import Pose
 from lidar_feature_extraction_tpu.ops.eig3 import eigh3x3
 from lidar_feature_extraction_tpu.ops.voxel_grid import (
     _cell_of, _ravel, grid_for_bounds)  # noqa: F401 (re-export)
+from lidar_feature_extraction_tpu.core.precision import highest_precision
 
 
 class GeometryGrid(NamedTuple):
@@ -131,6 +132,8 @@ def voxel_moments(xyz: jnp.ndarray, mask: jnp.ndarray, voxel_size,
     if weight is not None:
         feats = feats * weight[:, None].astype(dtype)
 
+    # On a GPU this scatter-add runs as atomics: the sums can differ in
+    # the last bits from run to run and from the CPU.
     m = jnp.zeros((capacity + 1, 10), dtype)
     m = m.at[cell].add(feats, mode="drop")
     return m[:capacity]
@@ -311,6 +314,7 @@ def fuse_record_tables(edge: GeometryGrid,
     return jnp.concatenate([edge.rec[:-1], surface.rec], axis=0)
 
 
+@highest_precision
 def fused_rows_from_grids(edge_grid: GeometryGrid,
                           surf_grid: GeometryGrid,
                           fused_rec: jnp.ndarray,
@@ -373,6 +377,7 @@ def fused_rows_from_grids(edge_grid: GeometryGrid,
     return eb, sb
 
 
+@highest_precision
 def edge_rows_from_grid(grid: GeometryGrid, scan_pts, scan_valid,
                         pose: Pose, min_points: int):
     """Point-to-line residual rows with per-iteration grid re-search.
@@ -400,6 +405,7 @@ def edge_rows_from_grid(grid: GeometryGrid, scan_pts, scan_valid,
                          valid=ok)
 
 
+@highest_precision
 def surface_rows_from_grid(grid: GeometryGrid, scan_pts, scan_valid,
                            pose: Pose, min_points: int):
     """Point-to-plane residual rows with per-iteration grid re-search.

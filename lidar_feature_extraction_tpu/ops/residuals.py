@@ -1,6 +1,6 @@
 """Batched edge / surface correspondence residuals and Jacobians.
 
-TPU re-design of the reference's per-point residual factories:
+Array re-design of the reference's per-point residual factories:
 
 - edge (point-to-line): ``Edge::Make`` (``localization/include/
   lidar_feature_localization/edge.hpp:78-126``, ``src/edge.cpp:43-98``).
@@ -21,8 +21,8 @@ Two retrieval paths:
 - ``edge_residuals`` / ``surface_residuals``: full kNN against a map
   structure (dense voxel grid or voxel-hash table);
 - ``*_residuals_from_candidates``: top-k against a **cached candidate
-  set** gathered once per search round — the retrieval gather is the
-  measured hot-path bottleneck on TPU, and candidates from the 27-voxel
+  set** gathered once per search round — the retrieval gather dominates
+  the per-iteration cost, and candidates from the 27-voxel
   neighborhood of the prior pose stay valid while pose corrections are
   below a voxel size, so the Gauss-Newton inner loop only re-ranks.
 """
@@ -39,6 +39,7 @@ from lidar_feature_extraction_tpu.ops.eig3 import eigh3x3
 from lidar_feature_extraction_tpu.ops.smallalg import solve3x3_sym
 from lidar_feature_extraction_tpu.ops import voxel_grid as vg
 from lidar_feature_extraction_tpu.ops import voxel_map as vh
+from lidar_feature_extraction_tpu.core.precision import highest_precision
 
 
 class ResidualBlock(NamedTuple):
@@ -60,6 +61,7 @@ def lookup_knn(map_struct, queries: jnp.ndarray, k: int):
     return vh.knn(map_struct, queries, k)
 
 
+@highest_precision
 def masked_mean_and_cov(pts: jnp.ndarray, valid: jnp.ndarray):
     """Mean and covariance over valid neighbors, batched [..., K, 3].
 
@@ -74,6 +76,7 @@ def masked_mean_and_cov(pts: jnp.ndarray, valid: jnp.ndarray):
     return mean, cov
 
 
+@highest_precision
 def edge_rows_from_neighbors(nbrs, nvalid, scan_pts, scan_valid,
                              pose: Pose, min_neighbors: int
                              ) -> ResidualBlock:
@@ -98,6 +101,7 @@ def edge_rows_from_neighbors(nbrs, nvalid, scan_pts, scan_valid,
                          valid=ok)
 
 
+@highest_precision
 def fit_plane(nbrs: jnp.ndarray, valid: jnp.ndarray,
               eps: float = 1e-9) -> jnp.ndarray:
     """Least-squares plane X w = -1 over valid neighbors, batched.
@@ -116,6 +120,7 @@ def fit_plane(nbrs: jnp.ndarray, valid: jnp.ndarray,
     return solve3x3_sym(ata, atb)
 
 
+@highest_precision
 def surface_rows_from_neighbors(nbrs, nvalid, scan_pts, scan_valid,
                                 pose: Pose, min_neighbors: int
                                 ) -> ResidualBlock:
@@ -194,6 +199,7 @@ def fit_surface_geometry(cand, cand_ok, scan_pts, scan_valid, pose: Pose,
     return SurfaceGeometry(w=w, u=u, wnorm=wnorm, valid=ok)
 
 
+@highest_precision
 def edge_rows_from_geometry(geom: EdgeGeometry, scan_pts,
                             pose: Pose) -> ResidualBlock:
     """Pose-dependent half of the edge linearization (inner GN loop)."""
@@ -208,6 +214,7 @@ def edge_rows_from_geometry(geom: EdgeGeometry, scan_pts,
                          valid=geom.valid)
 
 
+@highest_precision
 def surface_rows_from_geometry(geom: SurfaceGeometry, scan_pts,
                                pose: Pose) -> ResidualBlock:
     """Pose-dependent half of the surface linearization (inner GN loop)."""

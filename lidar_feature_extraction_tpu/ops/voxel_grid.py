@@ -1,10 +1,9 @@
 """Dense direct-addressed voxel grid: the fast-path correspondence
 structure for bounded maps.
 
-Profiling on the v5e chip showed the open-addressed hash lookup
-(ops/voxel_map.py) is dominated by its probe loop — 16 rounds of
-[Q, 27] gathers cost ~14 ms for 4k queries, ~20x the distance+top-k
-math. For maps with known bounds (any localization submap; KITTI-scale
+The open-addressed hash lookup (ops/voxel_map.py) is dominated by its
+probe loop: up to 16 rounds of [Q, 27] gathers against one for the
+distance+top-k math. For maps with known bounds (any localization submap; KITTI-scale
 with re-centering) direct addressing removes hashing entirely: bucket
 index = ravel(clip(floor((p - origin)/voxel) - grid_min)), one integer
 expression, then a single points gather. Build is one rank-scatter —

@@ -1,6 +1,6 @@
 """Device-resident voxel-hash point map with 3x3x3-neighborhood k-NN.
 
-TPU-native replacement for the reference's nanoflann KD-tree
+Array-native replacement for the reference's nanoflann KD-tree
 (``localization/include/lidar_feature_localization/kdtree.hpp:56``,
 ``src/kdtree.cpp:42-63``): tree traversal is irreducibly sequential and
 pointer-chasing, so instead map points are hashed into an open-addressed

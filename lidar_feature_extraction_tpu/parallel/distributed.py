@@ -1,7 +1,7 @@
 """Data-parallel scan processing over a device mesh.
 
 The reference processes one scan at a time in a single-threaded C++
-callback (``extraction/app/feature_extraction.cpp:92``); the TPU engine
+callback (``extraction/app/feature_extraction.cpp:92``); this engine
 batches scans and shards the batch over the mesh: extraction +
 registration are pure per-scan functions, so DP is a ``vmap`` + batch
 sharding and XLA partitions everything else automatically. Feature maps

@@ -5,7 +5,7 @@ The reference intended IMU integration but shipped a stub
 (``imu_integration/include/imu_integration/integration.hpp:30-33``,
 SURVEY.md §2.6); its LIO-SAM lineage puts preintegrated IMU factors
 between keyframes of a pose graph. This module is that back-end,
-TPU-native: the state is [K] keyframes of (q, t, v) — 9-dim tangent
+Array-native: the state is [K] keyframes of (q, t, v) — 9-dim tangent
 each — and two batched factor families linearized with ``jacfwd`` and
 reduced to dense normal equations exactly like parallel/pose_graph.py
 (same sharding story: factors shard on the leading axis, the global
@@ -47,6 +47,7 @@ from lidar_feature_extraction_tpu.core import quaternion as quat
 from lidar_feature_extraction_tpu.fusion.imu import GRAVITY
 from lidar_feature_extraction_tpu.parallel.pose_graph import (
     Constraints, constraint_residual)
+from lidar_feature_extraction_tpu.core.precision import highest_precision
 
 
 class ImuGraph(NamedTuple):
@@ -151,6 +152,7 @@ def _linearize_pose_one(qi, ti, qj, tj, z_q, z_t):
 _linearize_pose = jax.vmap(_linearize_pose_one)
 
 
+@highest_precision
 def _scatter(h, g, bi, bj, r, ji, jj, wji, wjj):
     """Accumulate one factor family's weighted blocks into H [9K, 9K],
     g [9K]. ji/jj: [M, D, 9] raw Jacobians; wji/wjj: the same blocks
@@ -178,6 +180,7 @@ def _scatter(h, g, bi, bj, r, ji, jj, wji, wjj):
     return h, g
 
 
+@highest_precision
 def fold_bias_into_factors(imu: ImuFactors, dbg, dba) -> ImuFactors:
     """Move the factors' linearization point by (dbg, dba) through the
     stored first-order Jacobians (Forster eq. 44; re-linearization
@@ -194,6 +197,7 @@ def fold_bias_into_factors(imu: ImuFactors, dbg, dba) -> ImuFactors:
     return imu._replace(dq=dq2, dv=dv2, dp=dp2)
 
 
+@highest_precision
 def estimate_gyro_bias(imu: ImuFactors, cons: Constraints,
                        bg0=None,
                        prior_weight: float = 2500.0,
@@ -266,6 +270,7 @@ def estimate_gyro_bias(imu: ImuFactors, cons: Constraints,
     return jax.lax.fori_loop(0, n_iterations, newton, bg0)
 
 
+@highest_precision
 def optimize_imu_graph(graph: ImuGraph, cons: Constraints | None,
                        imu: ImuFactors | None,
                        n_iterations: int = 10,

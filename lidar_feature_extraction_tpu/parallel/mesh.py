@@ -1,9 +1,9 @@
 """Device-mesh helpers for multi-chip execution.
 
 The reference has no distributed capability at all (SURVEY.md §2.8: the
-ROS node graph is its only parallelism); scale-out is a first-class TPU
+ROS node graph is its only parallelism); scale-out is a first-class
 feature here: scans/keyframes shard over the ``data`` axis of a Mesh,
-reductions ride ICI collectives.
+reductions are collectives over the mesh.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """Multi-host initialization and host-sharded scan feeding.
 
 No reference counterpart (the reference is single-host, SURVEY.md
-§2.8); this is the DCN-side bootstrap for pod-slice runs: one
-``jax.distributed.initialize`` per host, a global mesh over all chips,
+§2.8); this is the bootstrap for multi-host runs: one
+``jax.distributed.initialize`` per host, a global mesh over all devices,
 and helpers for feeding per-host scan shards into globally-sharded
 batches (`multihost_utils`-style host-local -> global assembly).
 """
@@ -21,11 +21,11 @@ def initialize(coordinator_address: str | None = None,
                process_id: int | None = None) -> None:
     """Bring up jax.distributed (no-op when single-process).
 
-    Arguments default to the JAX_* environment contract used by TPU
-    pods: ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` /
+    Arguments default to the JAX_* environment contract of
+    ``jax.distributed``: ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` /
     ``JAX_PROCESS_ID`` (exactly the variables
-    ``jax.distributed.initialize`` itself falls back to on non-TPU
-    platforms). Explicit arguments win over the environment.
+    ``jax.distributed.initialize`` itself falls back to when it
+    cannot detect a cluster). Explicit arguments win over the environment.
     """
     if coordinator_address is None:
         coordinator_address = os.environ.get("JAX_COORDINATOR_ADDRESS")

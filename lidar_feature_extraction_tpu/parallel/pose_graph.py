@@ -2,11 +2,11 @@
 
 No reference counterpart — the reference's mapping simply concatenates
 scans at externally-supplied poses (``mapping/include/
-lidar_feature_mapping/map.hpp:98-134``). The TPU build treats global
+lidar_feature_mapping/map.hpp:98-134``). This engine treats global
 consistency as a first-class distributed workload (BASELINE.json north
 star): relative-pose constraints between keyframes are sharded across
 the device mesh, each device linearizes its shard, and the global
-Gauss-Newton normal equations are formed with one ``psum`` over ICI —
+Gauss-Newton normal equations are formed with one ``psum`` over the mesh —
 the Schur-complement-style reduction of landmark-free pose graphs.
 
 State: poses [K, 7] (wxyz quaternion + translation), replicated.
@@ -28,6 +28,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from lidar_feature_extraction_tpu.core import quaternion as quat
 from lidar_feature_extraction_tpu.core.pose import Pose
+from lidar_feature_extraction_tpu.core.precision import highest_precision
 
 
 class PoseGraph(NamedTuple):
@@ -91,6 +92,7 @@ def _linearize_one(qi, ti, qj, tj, z_q, z_t):
 _linearize = jax.vmap(_linearize_one)
 
 
+@highest_precision
 def _local_normal_equations(graph: PoseGraph, cons: Constraints,
                             n_poses: int,
                             robust_delta: float | None = None):
@@ -173,8 +175,7 @@ def optimize_pose_graph(graph: PoseGraph, cons: Constraints,
     When ``axis_name`` is given the function must run inside shard_map /
     pjit with constraints sharded on the leading axis: each device
     assembles its local normal equations and the global system is the
-    ``psum`` over the mesh — the ICI reduction of the BASELINE north
-    star. Pose 0 is gauge-fixed with a strong prior. ``robust_delta``
+    ``psum`` over the mesh. Pose 0 is gauge-fixed with a strong prior. ``robust_delta``
     enables Huber-IRLS down-weighting of outlier constraints (the
     weights are recomputed every iteration at the current estimate).
     """
@@ -196,6 +197,7 @@ def optimize_pose_graph(graph: PoseGraph, cons: Constraints,
     return jax.lax.fori_loop(0, n_iterations, step, graph)
 
 
+@highest_precision
 def optimize_pose_graph_cg(graph: PoseGraph, cons: Constraints,
                            n_iterations: int = 10,
                            n_cg: int = 50,
@@ -212,13 +214,13 @@ def optimize_pose_graph_cg(graph: PoseGraph, cons: Constraints,
     This variant never forms H: each GN step solves the normal
     equations with Jacobi-preconditioned conjugate gradients, where one
     Hessian-vector product is two block-einsums plus a scatter-add —
-    O(M·36 + K·6) memory, all gather/scatter/segment-sum (TPU-native).
+    O(M·36 + K·6) memory, all gather/scatter/segment-sum.
 
     Under ``axis_name`` (inside shard_map, constraints sharded) each CG
     step psums one ``[K, 6]`` vector instead of the dense path's one
     ``[6K, 6K]`` matrix per GN step: for K=4096 that is 24K floats per
-    CG iteration instead of 600M floats per GN iteration — the ICI
-    traffic that makes pod-scale graphs feasible.
+    CG iteration instead of 600M floats per GN iteration — the
+    collective traffic that makes large graphs feasible.
     """
     k = graph.poses_q.shape[0]
 

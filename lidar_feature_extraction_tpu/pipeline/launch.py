@@ -1,4 +1,4 @@
-"""Pipeline assembly — the TPU equivalent of ``lidar_feature_launch``
+"""Pipeline assembly — the equivalent of ``lidar_feature_launch``
 and ``map_loader`` (SURVEY.md §2.7).
 
 The reference composes its three workloads as ROS 2 launch graphs that

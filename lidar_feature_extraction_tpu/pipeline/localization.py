@@ -1,4 +1,4 @@
-"""Scan-to-map localization: the TPU equivalent of the reference's
+"""Scan-to-map localization: the equivalent of the reference's
 ``Localizer`` facade + ``LOAMOptimizationProblem``
 (``localization/include/lidar_feature_localization/localizer.hpp:50-98``,
 ``loam_optimization_problem.hpp:51-88``).
@@ -11,8 +11,8 @@ voxel-hash table remains available for unbounded worlds).
 
 Correspondence strategy (measured-driven deviation from the reference):
 the reference re-searches the KD-tree every GN iteration
-(optimizer.hpp:85-86). On TPU the candidate gather is the bottleneck,
-so registration runs ``n_search_rounds`` outer rounds — each gathers
+(optimizer.hpp:85-86). The candidate gather dominates that cost, so
+registration runs ``n_search_rounds`` outer rounds — each gathers
 the 27-voxel candidate sets once at the current pose, then the GN inner
 loop re-ranks cached candidates per iteration. Equivalent while pose
 corrections stay below one voxel; acceptance is ATE parity.
@@ -52,7 +52,7 @@ class GeometryMaps(NamedTuple):
     per-voxel line/plane fits are baked at build time, so registration
     re-searches every Gauss-Newton iteration with one 8-float gather
     per point — the reference's per-iteration KD-tree search pattern
-    (optimizer.hpp:85-86) at TPU-native cost.
+    (optimizer.hpp:85-86) at one gather per point.
 
     ``fused`` is the concatenated edge+surface record table
     (gg.fuse_record_tables) so each GN iteration needs a single gather
@@ -255,10 +255,9 @@ def localize_scan(maps: FeatureMaps, image: RangeImage, prior: Pose,
     (the reference's node publishes both, subscriber.hpp:128-176 +
     feature_extraction.cpp:168-170).
 
-    Single fused program: right for CPU, vmap batching and multi-chip
-    sharding. For single-scan TPU serving prefer ``HostLocalizer`` —
-    the remote TPU compiler takes minutes for the fused while_loop but
-    seconds for its pieces, and host stepping adds only ~0.2 ms/iter.
+    Single fused program: right for vmap batching and multi-device
+    sharding. ``HostLocalizer`` runs the same math as small programs
+    stepped from the host.
     """
     if cfg.compact_extraction and isinstance(maps, GeometryMaps):
         feats = extract_features_compact(

@@ -1,4 +1,4 @@
-"""Keyframe feature-map builder: the TPU equivalent of the ``mapping``
+"""Keyframe feature-map builder: the equivalent of the ``mapping``
 package (``mapping/include/lidar_feature_mapping/map.hpp:40-150``).
 
 The reference accumulates transformed scans into one growing PCL cloud,

@@ -1,4 +1,4 @@
-"""Scan-to-scan odometry: the TPU equivalent of the reference's
+"""Scan-to-scan odometry: the equivalent of the reference's
 library-only odometry path (``localization/include/
 lidar_feature_localization/odometry.hpp:43-73``, ``pose_updater.hpp:
 44-71``, ``recent_scans.hpp:56-87``; the binary is never built there,
@@ -322,7 +322,7 @@ def register_to_window(edge_window, edge_mask, surf_window, surf_mask,
 
     The wide-basin stage of the odometry re-seed path: a cold start or
     a motion break leaves the prior farther from the optimum than the
-    fine grids can see (VERDICT r3 item 1); scaled grids pull the pose
+    fine grids can see; scaled grids pull the pose
     into the fine basin exactly like the loop-closure pyramid
     (pipeline/slam.py _register_to_keyframe)."""
     reg = cfg.registration
@@ -408,7 +408,7 @@ class Odometry:
             # prior this motion model is the minimum that keeps the
             # 3x3x3-voxel correspondence reach ahead of platform motion
             # (a constant-position seed loses track at ~1 m + ~5 deg
-            # per scan — VERDICT r3 item 1).
+            # per scan).
             delta = self._last_pose.inverse().compose(prev)
             cv_prior = prev.compose(delta)
             prior = cv_prior

@@ -1,4 +1,4 @@
-"""Host-side replay drivers: the TPU analogue of the reference's ROS
+"""Host-side replay drivers: the analogue of the reference's ROS
 process graph (SURVEY.md §1 dataflow + §3.1/§3.2 closed loop).
 
 The ROS topic pipeline (converter -> extraction -> localization -> EKF

@@ -4,7 +4,7 @@ loop closure, pose-graph back-end, map assembly.
 The reference stops at open-loop mapping (transform scans by
 externally-supplied poses and concatenate, ``mapping/include/
 lidar_feature_mapping/map.hpp:98-134``) — no loop closure, no global
-optimization. The TPU build treats globally-consistent mapping as a
+optimization. This engine treats globally-consistent mapping as a
 first-class workload (BASELINE.json configs 4-5): odometry poses seed a
 keyframe graph, re-registration against revisited keyframes adds loop
 constraints, and the distributed-capable pose-graph Gauss-Newton
@@ -429,8 +429,7 @@ class MappingPipeline:
         active pose count and both factor arrays to buckets so the
         jitted graph programs are reused as the map grows — without
         this every optimize() call at a new keyframe count compiles a
-        fresh XLA program, which dominated full-mapping wall time
-        (VERDICT r4 item 5: 2 s/scan against a 7.9 ms/scan front end)."""
+        fresh XLA program, which dominated full-mapping wall time."""
         b = minimum
         while b < n:
             b *= 2

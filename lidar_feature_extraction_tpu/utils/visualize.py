@@ -1,7 +1,7 @@
 """Visualization exports: colored point clouds and trajectories to PLY.
 
 The reference ships rviz configs (``rviz/*.rviz``) as its visualization
-layer; the TPU engine is ROS-free, so debug artifacts export to PLY
+layer; this engine is ROS-free, so debug artifacts export to PLY
 (any standard viewer: MeshLab, CloudCompare, Open3D) instead. The
 colored-label cloud mirrors the reference's ``colored_scan`` topic.
 """

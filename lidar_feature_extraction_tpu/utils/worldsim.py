@@ -2,8 +2,8 @@
 
 The reference repo has no simulation or evaluation harness (SURVEY.md
 §4: unit tests only, no bag replays); its acceptance story for the
-registration math is implicit in unit-level convergence tests. The TPU
-build's documented deviations (voxel-candidate kNN, precomputed
+registration math is implicit in unit-level convergence tests. This
+engine's documented deviations (voxel-candidate kNN, precomputed
 per-voxel geometry, compact surface runs — docs/design.md §8) all
 declare *ATE parity* as their acceptance criterion, which needs a
 ground-truth world to measure against. This module provides it:
@@ -227,7 +227,7 @@ def run_mapping_drive(world: World, cfg: PipelineConfig,
     from lidar_feature_extraction_tpu.fusion import imu as imu_mod
     from lidar_feature_extraction_tpu.ops.extraction import (
         extract_features)
-    from lidar_feature_extraction_tpu.pipeline.slam import MappingPipeline
+    from lidar_feature_extraction_tpu.pipeline.launch import launch_mapping
 
     ex = cfg.extraction
     n = ex.n_rings * ex.max_points_per_ring
@@ -268,7 +268,7 @@ def run_mapping_drive(world: World, cfg: PipelineConfig,
             "imu_accel_noise",
             max(2.0e-3, float(e_a * np.sqrt(scan_period))))
 
-    pipeline = MappingPipeline(cfg, **pipeline_kwargs)
+    pipeline = launch_mapping(cfg, **pipeline_kwargs)
     for i in range(n_scans):
         pose = circle_pose(i, n_scans, radius)
         pts, ring = raycast_scan(world, pose, rng, **scan_kwargs)

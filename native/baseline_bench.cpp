@@ -1,7 +1,7 @@
 // Single-core C++ baseline: reference-equivalent LOAM pipeline.
 //
 // The upstream reference (tier4/lidar_feature_extraction) publishes no
-// benchmark numbers (BASELINE.md), so the TPU engine's speedup divisor
+// benchmark numbers (BASELINE.md), so the engine's speedup divisor
 // is MEASURED here: a faithful re-implementation of the reference's
 // computational structure — per-ring sequential extraction
 // (curvature convolution + argsort/suppress labeling + masking sweeps)

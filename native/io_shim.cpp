@@ -1,14 +1,14 @@
-// Native host-side I/O shim for the TPU LiDAR engine.
+// Native host-side I/O shim for the LiDAR engine.
 //
 // The reference's native layer (PCL / nanoflann C++) carries the
-// performance-critical compute; in the TPU design compute lives in
+// performance-critical compute; in this design compute lives in
 // XLA/Pallas kernels and the native layer's remaining job is fast
 // host-side ingestion: zero-copy scan loading feeding the device
 // pipeline (SURVEY.md §7 design stance). This shim provides
 // mmap-backed file reads and a multi-threaded scan prefetcher,
 // exposed over a C ABI for ctypes.
 //
-// Build: see native/Makefile (produces libtpu_lidar_io.so).
+// Build: see native/Makefile (produces liblidar_io.so).
 
 #include <atomic>
 #include <condition_variable>
@@ -65,7 +65,7 @@ int64_t tl_read_file(const char* path, void* out, int64_t capacity) {
 // ---------------------------------------------------------------------
 // Asynchronous scan prefetcher: a worker pool reads files ahead of the
 // consumer so device steps never wait on disk. The host pipeline pulls
-// buffers in submission order (the TPU analogue of the reference's DDS
+// buffers in submission order (the analogue of the reference's DDS
 // subscription queues, subscriber.hpp:72-77).
 
 struct Prefetcher {

@@ -1,7 +1,7 @@
 """Plain-numpy reference implementations mirroring the C++ reference's
 *sequential* semantics (written from the surveyed behavior of
 tier4/lidar_feature_extraction, not copied). These are the golden oracles
-for the TPU kernels: slow, scalar, order-faithful.
+for the array kernels: slow, scalar, order-faithful.
 
 Reference behavior sources are cited per function.
 """
@@ -84,7 +84,7 @@ def block_boundaries(n: int, padding: int, n_blocks: int) -> list[int]:
     ``int(s*(1.-j/n) + e*j/n)`` in double and truncates, which can land
     one below the exact rational value when it is an exact integer
     (float round-down). We use the integer-exact floor
-    ``(s*(B-j) + e*j) // B`` in both the oracle and the TPU kernel; the
+    ``(s*(B-j) + e*j) // B`` in both the oracle and the array kernel; the
     partitions differ from the C++ by at most one point at exact-integer
     boundaries."""
     s, e = padding, n - padding

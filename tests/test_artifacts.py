@@ -1,9 +1,8 @@
-"""Committed-artifact integrity guards (VERDICT r4 item 4).
+"""Committed-artifact integrity guards.
 
-Rounds 3 and 4 both ended with a failed measurement silently committed:
-ATE_EVAL.json carried a NaN while README/BASELINE/PARITY quoted a stale
-good number from an earlier commit. These tests make that state fail CI
-structurally:
+A failed measurement once got committed silently: ATE_EVAL.json carried
+a NaN while README/BASELINE/PARITY quoted a stale good number from an
+earlier commit. These tests make that state fail CI structurally:
 
 1. every committed benchmark/eval artifact must contain only finite
    numbers (json.load parses bare ``NaN`` into float('nan'), so a failed
@@ -26,22 +25,14 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 
-# Artifacts produced by this repo's own harnesses. BENCH_r*.json /
-# MULTICHIP_r*.json are driver-written round snapshots (historical, may
-# embed stderr tails); they are checked for finiteness only.
+# Artifacts produced by this repo's own harnesses.
 OWN_ARTIFACTS = [
     "ATE_EVAL.json",
-    "ODOMETRY_BENCH.json",
-    "BATCH_BENCH.json",
-    "POSEGRAPH_BENCH.json",
+    "BASELINE.json",
     "SCALING_MULTIHOST.json",
     "SCALING_r03.json",
     "baseline_measured.json",
 ]
-DRIVER_ARTIFACTS = sorted(
-    p.name for p in ROOT.glob("BENCH_r*.json")) + sorted(
-    p.name for p in ROOT.glob("MULTICHIP_r*.json"))
-OPTIONAL_ARTIFACTS = ["MAPPING_BENCH.json"]
 
 
 def _nonfinite_paths(tree, prefix=""):
@@ -59,14 +50,9 @@ def _nonfinite_paths(tree, prefix=""):
     return bad
 
 
-@pytest.mark.parametrize(
-    "name",
-    OWN_ARTIFACTS + DRIVER_ARTIFACTS + OPTIONAL_ARTIFACTS)
+@pytest.mark.parametrize("name", OWN_ARTIFACTS)
 def test_artifact_is_finite(name):
-    path = ROOT / name
-    if name in OPTIONAL_ARTIFACTS and not path.exists():
-        pytest.skip(f"{name} not yet recorded")
-    text = path.read_text()
+    text = (ROOT / name).read_text()
     try:  # bare NaN/Infinity parse to non-finite floats
         tree = json.loads(text)
     except json.JSONDecodeError:  # JSONL artifacts (one object per line)
@@ -108,30 +94,20 @@ DOC_CLAIMS = [
      "ATE_EVAL.json", ("slam_loop_imu", "ate_rmse_m"), 0.0016),
     ("README.md", r"ATE ([\d.]+) m on a full-shape synthetic drive",
      "ATE_EVAL.json", ("production_kitti_hdl64", "ate_rmse_m"), 0.0016),
-    ("BASELINE.md", r"\*\*([\d.]+) scans/s serving",
-     None, None, None),  # replaced below if BASELINE quotes batch rate
-    ("README.md", r"\*\*(\d+) scans/s serving independent scans at batch 16",
-     "BATCH_BENCH.json", ("batch16", "scans_per_sec"), 1.0),
-    ("README.md", r"`ODOMETRY_BENCH\.json`: (\d+) scans/s",
-     "ODOMETRY_BENCH.json", ("extracted_features", "scans_per_sec"), 0.6),
-    ("BASELINE.md", r"honest, r\d\): ([\d.]+) scans/s",
-     "ODOMETRY_BENCH.json", ("extracted_features", "scans_per_sec"), 0.06),
+    ("BASELINE.md", r"production `kitti_hdl64\(\)` \| \*\*([\d.]+) m\*\*",
+     "ATE_EVAL.json", ("production_kitti_hdl64", "ate_rmse_m"), 0.0016),
+    ("BASELINE.md", r"faithful \(point maps[^|]*\| ([\d.]+) m",
+     "ATE_EVAL.json", ("faithful", "ate_rmse_m"), 0.0016),
 ]
-DOC_CLAIMS = [c for c in DOC_CLAIMS if c[2] is not None]
 
 
 @pytest.mark.parametrize(
     "doc,pattern,artifact,path,tol", DOC_CLAIMS,
     ids=[f"{d}:{p[:24]}" for d, p, a, _, _ in DOC_CLAIMS])
 def test_doc_quote_matches_artifact(doc, pattern, artifact, path, tol):
-    tree = _artifact(artifact)
-    if path[0] == "batch16":  # BATCH_BENCH is a list of batch rows
-        row = next(r for r in tree if r["batch"] == 16)
-        actual = row[path[1]]
-    else:
-        actual = tree
-        for key in path:
-            actual = actual[key]
+    actual = _artifact(artifact)
+    for key in path:
+        actual = actual[key]
     quoted = _doc_figure(doc, pattern)
     assert math.isfinite(actual), (
         f"{artifact}:{'.'.join(path)} is non-finite but {doc} quotes "

@@ -1,4 +1,4 @@
-"""Parity tests: TPU extraction kernels vs the sequential numpy oracle
+"""Parity tests: array extraction kernels vs the sequential numpy oracle
 (tests/np_ref.py) that mirrors the C++ reference's behavior."""
 
 import math

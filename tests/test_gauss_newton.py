@@ -156,7 +156,7 @@ def test_align_points_facade():
 def test_hessian_output_matches_weighted_normal_equations():
     """GNResult.hessian must equal M^T A M rebuilt by hand from the
     final problem (the registration information the pose graph
-    consumes, VERDICT r3 item 3)."""
+    consumes)."""
     rng = np.random.default_rng(7)
     src = jnp.asarray(rng.uniform(-5, 5, size=(24, 3)))
     true = random_pose(rng)

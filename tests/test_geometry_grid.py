@@ -219,7 +219,7 @@ def test_geometry_registration_empty_scan():
 
 
 def test_moment_grid_eviction_never_goes_negative_across_rolls():
-    """ADVICE r3 (medium): a windowed point whose voxels are cleared by
+    """A windowed point whose voxels are cleared by
     a grid roll must NOT be subtracted later when the grid rolls back —
     that left negative counts leaking into neighborhood fits. Drive the
     incremental odometry with a tiny grid so points roll off and the

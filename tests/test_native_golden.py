@@ -1,5 +1,5 @@
 """Two-implementation agreement: JAX pipeline vs the independent C++
-golden generator (VERDICT r2 item 6).
+golden generator.
 
 Every JAX kernel in the suite is parity-tested against ``tests/
 np_ref.py`` — a numpy oracle written by the same author from the same

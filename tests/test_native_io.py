@@ -1,7 +1,6 @@
 """Tests for the native I/O shim (io/native_io.py + native/io_shim.cpp):
 mmap-backed reads and the threaded scan prefetcher, plus the pure-numpy
-fallback used when the shared library isn't built (VERDICT r2 weak
-item 7 — this path previously had no coverage at all)."""
+fallback used when the shared library isn't built."""
 
 import numpy as np
 import pytest

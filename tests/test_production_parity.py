@@ -92,7 +92,7 @@ def test_production_ate_within_1p2x_of_faithful():
     assert ate_faithful < 1.5, ate_faithful
     assert ate_production < 1.5, ate_production
     # The acceptance criterion for every production-path deviation
-    # (VERDICT r2 item 1): production ATE <= 1.2x faithful ATE. Measured
+    # production ATE <= 1.2x faithful ATE. Measured
     # at r3: faithful 0.79 m, production 0.74 m (ratio 0.94) over a
     # 10-scan drive — see BASELINE.md.
     assert ate_production <= 1.2 * ate_faithful + 0.05, (

@@ -207,7 +207,7 @@ def test_bounded_backend_window_and_cg_match_dense():
     """mapping.max_keyframes bounds the optimized window and the CG
     solver auto-selects past dense_solver_max_keyframes; on a clean
     drive the bounded pipeline's trajectory matches the unbounded
-    dense one (VERDICT r3 item 5 / ADVICE r3)."""
+    dense one."""
     import dataclasses
 
     rng = np.random.default_rng(4)
@@ -250,8 +250,7 @@ def test_bounded_backend_window_and_cg_match_dense():
 def test_mapping_checkpoint_resume(tmp_path):
     """Run 8 scans, checkpoint, resume, run 8 more: the resumed
     pipeline's trajectory (and graph bookkeeping) must equal the
-    unbroken 16-scan run's (SURVEY.md §5 resume-mid-sequence plan;
-    VERDICT r3 item 7)."""
+    unbroken 16-scan run's (SURVEY.md §5 resume-mid-sequence plan)."""
     from lidar_feature_extraction_tpu.pipeline.slam import Keyframe  # noqa
 
     rng_world = np.random.default_rng(5)

@@ -8,7 +8,7 @@ runs 64x2048 / 80 scans and records ATE_EVAL.json): same code path
 via ``worldsim.run_mapping_drive``, at 32x1024 / 40 scans. It guards
 the r3->r4 fix stack — constant-velocity odometry prior, cold-start
 wide-basin re-seed, odometry-frame chain constraints, and the
-post-optimization frame correction (VERDICT r3 item 1).
+post-optimization frame correction.
 """
 
 import dataclasses

@@ -1,5 +1,5 @@
 """Reduced-shape closed-loop IMU mapping regression: the with-IMU twin
-of ``tests/test_slam_drive.py`` (VERDICT r4 item 3).
+of ``tests/test_slam_drive.py``.
 
 Same code path as ``eval_ate.py``'s ``slam_loop_imu`` acceptance drive
 (``worldsim.run_mapping_drive(with_imu=True)``: raycast -> extraction

@@ -1,5 +1,5 @@
-"""Sliding-window freeze + frozen-region loop closure drive
-(VERDICT r4 item 6). Own module: the drive's compile volume needs the
+"""Sliding-window freeze + frozen-region loop closure drive.
+Own module: the drive's compile volume needs the
 full per-module executable budget (see conftest fixture docstring —
 test_slam.py's other drives plus this one in a single process cross
 the XLA:CPU live-executable segfault threshold)."""
@@ -19,7 +19,7 @@ def test_window_freeze_with_frozen_region_loop_closure():
     then — the bridge re-anchoring path (pipeline/slam.py optimize:
     constraints with a frozen endpoint re-anchor on the window's
     gauge-fixed first pose) that r4 only ever exercised on a toy
-    6-keyframe chain (VERDICT r4 item 6). The trajectory must stay
+    6-keyframe chain. The trajectory must stay
     metric end to end; a wrong bridge transform would bend the live
     window against the frozen map."""
     import dataclasses
